@@ -5,7 +5,11 @@ dp_ghost halos + exchange_dof, run as ``mpirun -np N goma``): element
 k-way partition, one-layer ghost elements, ppermute halo exchange, and a
 psum-only sharded Newton-Krylov with element-block Vanka smoothing.
 
-Run on any device count — virtual CPU devices for a laptop demo:
+Runs over every device JAX finds — the GPUs of one host:
+
+    python examples/distributed_cavity.py
+
+or, without accelerators, virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORMS=cpu python examples/distributed_cavity.py

@@ -20,7 +20,7 @@ def build(nx=32, ny=8, U=1.0, mu=0.1, rho=0.05, sigma=1.0, x_die=1.5, L=4.0,
           jacobian_dtype=None, newton_overrides=None):
     """Construct (prob, ts, x0): deck + transient solver + initial state —
     split out of run() so benchmarks can warm and re-run one solver
-    instance (remote TPU compiles must be paid once, outside timing)."""
+    instance (compiles are paid once, outside timing)."""
     from goma_tpu.bc import CapillaryBC, KinematicBC
     from goma_tpu.fem import Problem
     from goma_tpu.mesh import rectangle_mesh

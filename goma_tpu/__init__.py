@@ -1,4 +1,4 @@
-"""goma_tpu — a TPU-native multiphysics finite-element framework.
+"""goma_tpu — a JAX multiphysics finite-element framework for accelerators.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of Goma (Sandia's
 full-Newton coupled multiphysics FEM code, see /root/reference): coupled
@@ -6,7 +6,8 @@ incompressible & viscoelastic fluid momentum, energy, species, ALE mesh motion,
 level-set two-phase flow, porous media, shells, electrochemistry — assembled
 with exact (AD) Jacobians and solved by damped full Newton.
 
-Architecture (TPU-first, nothing is a translation of the C reference):
+Architecture (nothing is a translation of the C reference; the main path
+runs on NVIDIA GPUs and, for tests, on the CPU):
 
 - Meshes are reordered into same-element-type blocks; per-element residual
   kernels are pure functions, `vmap`-ed over all elements of a block, and
@@ -19,9 +20,9 @@ Architecture (TPU-first, nothing is a translation of the C reference):
 - The linear solve is a JAX-native Krylov stack (restarted GMRES/BiCGStab
   with block-Jacobi/batched-LU preconditioning) instead of
   AztecOO/Amesos/PETSc (reference ``src/mm_sol_nonlinear.c:1290-1515``).
-- Multi-chip runs shard the element loop over a `jax.sharding.Mesh` with
-  `psum` reductions over ICI (replacing MPI halo exchange in
-  ``src/dp_comm.c``).
+- Multi-device runs partition the dofs over a `jax.sharding.Mesh` with
+  `ppermute` halo exchange and `psum` reductions (replacing MPI halo
+  exchange in ``src/dp_comm.c``).
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,7 @@ def main(argv=None) -> int:
                    help="override/force Exodus output path")
     p.add_argument("--echo", action="store_true",
                    help="print the fully-resolved deck (reference echo file)")
-    p.add_argument("--platform", choices=("cpu", "tpu"), default=None,
+    p.add_argument("--platform", choices=("cpu", "gpu"), default=None,
                    help="force a JAX platform (default: environment)")
     p.add_argument("--x64", action="store_true",
                    help="enable float64 (recommended on CPU)")

@@ -2,7 +2,7 @@
 
 Parity: reference ``src/adapt/omega_h_interface.cpp`` (``adapt_mesh_omega_h
 :1325`` — metric-driven AMR with solution transfer) and
-``src/adapt/resetup_problem.c``. TPU-first redesign: dynamic mesh topology
+``src/adapt/resetup_problem.c``. Redesign: dynamic mesh topology
 would trigger re-jit storms device-side, so adaptation runs fully on host
 between solves — an error indicator picks the new resolution, a NEW mesh is
 generated (any generator/reader), the solution (and xdot for transients) is

@@ -3,7 +3,7 @@
 Parity: the reference's metric-driven local AMR
 (``/root/reference/src/adapt/omega_h_interface.cpp:1325 adapt_mesh_omega_h``
 — Omega_h tri/tet refinement keyed to an LS-band / error metric, with
-solution transfer and problem re-setup). TPU-first redesign: refinement runs
+solution transfer and problem re-setup). Redesign: refinement runs
 fully on host between solves (device shapes stay static per Problem); the
 classic red/green pattern on triangle meshes refines ONLY the marked
 elements, closing neighbors with green bisections so no hanging nodes ever

@@ -7,7 +7,7 @@ averaged nodal normals, ``setup_rotated_bc_nodes:707``), ``src/bc/rotate.c``
 slip on curved walls (u.n = 0 with tangential momentum retained) and strong
 kinematic mesh BCs.
 
-TPU-first redesign: instead of runtime row surgery per node, rotation is a
+Redesign: instead of runtime row surgery per node, rotation is a
 precomputed *linear transformation of assembled rows*: for each rotated node
 the ncomp=dim rows of the chosen variable share an identical CSR column set
 (they couple to the same elements), so row rotation is a batched gather ->

@@ -7,7 +7,7 @@ SHELL_GRAD_FP / SHELL_GRAD_FH / SHELL_GRAD_TEMP,
 ``include/rf_bc_const.h:1108-1121``) and the special endpoint forces of
 ``src/bc_special.c:77`` (CAP_ENDFORCE etc.).
 
-TPU-first design: bar endpoints are ordinary 0-dimensional "faces" of the
+Design: bar endpoints are ordinary 0-dimensional "faces" of the
 face-kernel machinery (``goma_tpu/elements/shapes.py _bar_faces``): a
 sideset over (bar element, endpoint id) pairs, a one-point unit-weight
 rule, and the outward conormal = signed unit curve tangent. The kernels

@@ -1,10 +1,12 @@
 """Global numeric configuration.
 
-The reference (Goma) is double-precision everywhere. On TPU, f64 is emulated
-and slow; the framework therefore carries an explicit working dtype:
+The reference (Goma) is double-precision everywhere. The framework carries
+an explicit working dtype, so a deck can run in float64 or float32:
 
-- tests / parity runs: float64 (requires ``jax.config.update("jax_enable_x64", True)``)
-- TPU production runs: float32 accumulation with bfloat16 matmul inputs where safe.
+- float64 requires ``jax.config.update("jax_enable_x64", True)`` (tests, the
+  CLI's ``--x64``, the benchmark and the smoke test enable it);
+- the Jacobian and Krylov dtype can be set apart from it
+  (``Problem.jacobian_dtype``): f64 residuals with f32 Jacobians.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ continuation with adaptive parameter step), ``src/ac_hunt.c:91 hunt_problem``
 (multi-parameter sweeps), and LOCA's arclength bordering
 (``src/loca_lib.c:74 con_lib``, ``src/loca_bord.c``).
 
-TPU-first distinctions:
+Design distinctions:
 - the parameter enters the residual through the ``params`` pytree, so the
   sensitivity dR/dlambda is one ``jax.jvp`` through the assembled residual —
   no hand-coded parameter derivatives (reference: ``soln_sens`` /

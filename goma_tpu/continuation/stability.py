@@ -89,13 +89,13 @@ def solve_stability_device(problem, x, params, n_modes: int = 6,
                            inner_tol: float = 1e-9, inner_maxiter: int = 600,
                            gmres_restart: int = 120,
                            seed: int = 0) -> StabilityResult:
-    """Shift-invert Arnoldi running on device (TPU-native LSA).
+    """Shift-invert Arnoldi running on device (on-device LSA).
 
     The reference delegates this to serial eggroll or ARPACK+Cayley
     (src/sl_eggrollwrap.c:69, src/loca_eigen_cayley.F); here the inner
     (J - mu0 M)^-1 solves use the framework's own preconditioned GMRES and
     the Arnoldi basis lives on device (CGS2 orthogonalization = batched
-    matmuls on the MXU). The small Hessenberg eigenproblem is solved on host.
+    batched matmuls). The small Hessenberg eigenproblem is solved on host.
     """
     import jax
     from goma_tpu.fem.sparsity import EllOperator

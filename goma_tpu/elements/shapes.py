@@ -615,7 +615,7 @@ def volume_rule(family: str, npts_1d):
 
     Composite ("subgrid") rules: pass ``("subcell", n_sub, base_order)`` to
     subdivide the reference element into n_sub^dim congruent subcells with
-    the base rule applied in each — the TPU-static equivalent of the
+    the base rule applied in each — the static-shape equivalent of the
     reference's level-set subgrid/subelement integration
     (``get_subelement_integration_pts``, used ``src/mm_fill.c:664-678``):
     sharp Heaviside property jumps integrate to O((h/n_sub)^2) without

@@ -4,7 +4,7 @@ Parity: reference ``src/mm_unknown_map.c`` (``set_unknown_map:758``,
 ``Index_Solution:5182``) and the per-element pointer gather
 ``src/mm_fill_ptrs.c:1136 load_elem_dofptr``.
 
-TPU-first redesign: instead of per-element pointer lists walked at runtime,
+Redesign: instead of per-element pointer lists walked at runtime,
 we precompute for every block a dense int32 gather table
 ``gather (n_elem, n_local_dof)`` so that the entire element state for a block
 is one ``x[gather]`` gather, and scatter is one ``segment_sum``. Numbering is

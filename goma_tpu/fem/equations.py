@@ -116,7 +116,7 @@ class PassiveVar(Equation):
     (identically zero residual): makes the variable's values, gradients and
     basis available to this block's kernels — e.g. the bulk velocity at a
     lubrication shell's nodes for the VELO_NORMAL_LUB end coupling. The
-    TPU-first replacement for the reference's shell<->bulk "friend element"
+    On-device replacement for the reference's shell<->bulk "friend element"
     gather (``src/mm_shell_util.c:1330 load_neighbor_var_data``): shells
     share the bulk boundary nodes, so registering the variable on the shell
     block routes the same dofs through the block's gather."""

@@ -5,10 +5,9 @@ velocity/pressure core of configs #2-#5).
 Why this exists: the generic path AD's the per-element residual
 (``jax.jacfwd`` with ~22 tangents, ``fem/assembly.py``). That is exact and
 fully general, but every intermediate carries tiny trailing axes
-((nq, dim, dim) etc.), so on TPU the vector lanes are ~2/128 occupied.
+((nq, dim, dim) etc.), which leaves wide vector units mostly idle.
 
-Round-4 formulation (replacing the round-3 element-last quadrature loop,
-which measured ~1.5 us/element on TPU — only ~3.4x one C++ core):
+Formulation (in place of an element-last quadrature loop):
 
 1. **The geometry is fixed and rho/mu are constant, so every linear term
    is state-independent.** The viscous, pressure-gradient, divergence and
@@ -18,8 +17,8 @@ which measured ~1.5 us/element on TPU — only ~3.4x one C++ core):
    Per Newton iteration only the convection terms are rebuilt.
 2. **The convection terms contract over the 9-point quadrature axis as
    tall-skinny GEMMs** (``(a*e, q) x (q, i)`` shapes with the huge element
-   axis in M/N), which XLA maps onto the MXU instead of 2/128-occupied
-   vector lanes. No quadrature loop remains.
+   axis in M/N), which XLA hands to its matrix-product kernels instead of
+   narrow elementwise work. No quadrature loop remains.
 
 The Jacobian entries are the hand-derived linearization (matching the
 reference's hand-coded ``lec->J`` of ``src/mm_fill_momentum.c:98`` /
@@ -111,9 +110,9 @@ def node_gather(x, gnode, gp):
     """Element-local dof gather exploiting node-major dof adjacency: the
     (u, v) pair at each velocity node is fetched as ONE width-2 dynamic
     slice (vmapped -> an XLA gather of 2-wide rows), so the pass issues 13
-    gather rows per element instead of 22 scalar loads. TPU-measured at
-    36.9k elements: 7.4 -> 3.9 ms. Returns (ne, nl) in the comp-major slot
-    layout the kernel expects."""
+    gather rows per element instead of 22 scalar loads (not measured on
+    the GPU). Returns (ne, nl) in the comp-major slot layout the kernel
+    expects."""
     uv = jax.vmap(jax.vmap(
         lambda i: jax.lax.dynamic_slice(x, (i,), (2,))))(gnode)
     p = x[gp]
@@ -144,9 +143,9 @@ def select_tables(T, bi: int, dtype):
     """Pick the precision-matched device tables for block ``bi``.
 
     The tables are stored in the problem dtype AND (when that is f64) a
-    pre-cast f32 copy: casting the (nl, nl, ne) ``Kfix`` stream inside the
-    per-iteration jit costs more than the whole element kernel (TPU-measured
-    at 64x64: ~36 ms of the 45 ms assembly bucket was the f64->f32 cast).
+    pre-cast f32 copy, so the per-iteration jit does not re-cast the
+    (nl, nl, ne) ``Kfix`` stream, which is larger than the element kernel's
+    own work (not measured on the GPU).
     """
     keys = ("fns:gphi", "fns:w", "fns:Kfix", "fns:Mvel")
     if jnp.dtype(dtype) == jnp.float32 and f"{keys[0]}32:{bi}" in T:
@@ -195,7 +194,7 @@ def match_ns_q2q1(problem, bi: int):
 def ns_q2q1_rj(q, hist, T, meta, static, ct, dtype, with_jac=True,
                with_rs=False):
     """Residual (ne, nl) and exact Jacobian (ne, nl, nl) of the NS Galerkin
-    block: precomputed linear part + MXU-GEMM convection terms.
+    block: precomputed linear part + batched-GEMM convection terms.
 
     q, hist: (ne, nl) gathered local dofs (velocity comp-major then pressure,
     the dofmap slot layout). T: device tables from :func:`build_tables`.

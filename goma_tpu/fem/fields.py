@@ -5,7 +5,7 @@ Parity: reference ``src/load_field_variables.c`` (``load_fv:127``,
 ``beer_belly`` (``src/mm_fill_util.c:139``) + basis loading
 (``load_basis_functions:2607``).
 
-TPU-first redesign: everything is evaluated for *all* quadrature points of an
+Redesign: everything is evaluated for *all* quadrature points of an
 element at once with batched einsums (leading axis = qp), inside a function
 that is `vmap`-ed over all elements of a block. Mesh-displacement
 sensitivities (the ALE core, hand-coded in the reference) come for free:

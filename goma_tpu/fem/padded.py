@@ -1,17 +1,16 @@
 """Padded node-slot layout for the Krylov hot path.
 
-TPU gathers cost ~4 ns per gathered ROW regardless of row width (up to the
-128-lane register), so the compact scalar-dof gathers of the element matvec
-(one row per local dof: ~2 x n_elem x n_ldof rows per A@v) are the dominant
-cost of a preconditioned Krylov iteration. This module reshapes the matvec
-around node-vector rows:
+The compact scalar-dof gathers of the element matvec issue one row per
+local dof (~2 x n_elem x n_ldof rows per A@v). Where a gather costs about
+the same per ROW whatever its width, those rows dominate a preconditioned
+Krylov iteration. This module reshapes the matvec around node-vector rows:
 
   compact v (n_dof,)
     -> vp (n_nodes, K) node rows        [contiguous slices: node-major
                                          numbering makes each node's dofs
                                          consecutive; one slice per node]
     -> qp = vp[conn] (ne, nnode, K)     [ONE row gather per element-node]
-    -> yp = Jp @ qp.reshape(ne, npad)   [batched dense matmul on the MXU;
+    -> yp = Jp @ qp.reshape(ne, npad)   [batched dense matmul;
                                          Jp is blockJ re-indexed into the
                                          padded layout once per Newton
                                          iteration]
@@ -19,13 +18,13 @@ around node-vector rows:
     -> compact y (n_dof,)
 
 Row counts drop from ~2*ne*nl scalar rows to ~ne*nnode + n_nodes*melems wide
-rows — measured ~3-4x faster per matvec on real TPU hardware.
+rows (the gain is not measured on the GPU).
 
 Elemental (P0/P1E) dofs are contiguous per (slot, element) in the compact
 vector, so their gather/scatter is a pure reshape. Face-kernel (DG/boundary)
 contributions keep the compact path and are combined through a dedicated
 transpose gather. Reference analog: this replaces the CSR SpMV inside the
-reference's Krylov solvers (AztecOO/PETSc) — same operator, TPU-native
+reference's Krylov solvers (AztecOO/PETSc) — same operator, node-row
 dataflow.
 """
 

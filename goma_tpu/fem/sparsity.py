@@ -5,7 +5,7 @@ filtered by the equation-variable coupling mask
 (``src/linalg/sparse_matrix.cpp:60 GomaSparseMatrix_SetProblemGraph``) and
 scatters per-element blocks with ``load_lec`` (``src/mm_fill.c:4959``).
 
-TPU-first redesign: the pattern is the union of per-block element dof
+Redesign: the pattern is the union of per-block element dof
 cross-products, built once on host. Every element-local Jacobian entry
 (e, i, j) has a precomputed destination ``nnz_map[e, i, j]`` into the flat
 CSR value array, so device-side assembly is a single ``segment_sum`` over a
@@ -95,8 +95,7 @@ def spmv(vals: jnp.ndarray, x: jnp.ndarray, rows: jnp.ndarray, cols: jnp.ndarray
 class EllOperator:
     """Padded-row (ELL) sparse matvec.
 
-    TPU scatters are serial and slow (~60 ms for 400k nnz f64); gathers are
-    fast. ELL stores per-row column ids and CSR-value positions padded to the
+    ELL stores per-row column ids and CSR-value positions padded to the
     max row degree, so y = sum_k vals[pos[:, k]] * x[cols[:, k]] is pure
     gather + elementwise + row-sum — no scatter at all. This is the SpMV the
     Krylov stack uses on device (assembly still scatters once per Newton
@@ -130,9 +129,9 @@ class EllOperator:
 def row_sums_ell(vals, pos):
     """Row sums of |A| via the ELL gather map — scatter-free.
 
-    ``segment_sum`` over CSR rows lowers to a TPU scatter-add (serial,
-    ~200 ms for 2.2M nnz on v5e); gathering the values into the padded
-    (n, K) ELL layout and dense-reducing costs ~1 ms. ``pos`` is
+    Gathers the values into the padded (n, K) ELL layout and reduces
+    densely instead of a ``segment_sum`` scatter-add over CSR rows (which
+    is faster is not measured on the GPU). ``pos`` is
     ``EllOperator.tables["pos"]`` (pad slot -> nnz, value 0)."""
     ve = jnp.concatenate([vals, jnp.zeros(1, dtype=vals.dtype)])[pos]
     return jnp.sum(jnp.abs(ve), axis=1)

@@ -6,7 +6,7 @@ maps, etch-depth maps) sampled onto mesh nodes and used as frozen external
 field variables during assembly (``External_Field_Variables``,
 include/mm_as_structs.h:1046).
 
-TPU-first distinctions: the reference walks elements and votes pixels into
+Design distinctions: the reference walks elements and votes pixels into
 shape-function projections at runtime; here the image is resampled ONCE on
 host with vectorized multilinear interpolation, producing a plain nodal
 array that flows through ``Problem(external_fields=...)`` /

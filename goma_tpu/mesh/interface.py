@@ -5,7 +5,7 @@ Parity: the reference supports variables that are discontinuous at material
 boundaries (per-material dofs at shared nodes, ``src/rf_setup_problem.c:514``)
 with interfacial matching conditions (``src/mm_interface.c:76
 interface_source``, VL_EQUIL/Henry-law partitioning, surface-discontinuity
-fluxes). TPU-first: the discontinuity is made *topological* on the host —
+fluxes). Design: the discontinuity is made *topological* on the host —
 interface nodes are duplicated for one side's block — and the matching
 conditions become cross-block interface kernels assembled over paired faces
 (which also provides the reference's neighbor-element Jacobian coupling

@@ -1,8 +1,9 @@
 """Native (C++) mesh-preprocessing kernels with numpy fallbacks.
 
 Compiled on first use with g++ (the image has no pybind11; bindings are
-ctypes). If compilation fails the pure-numpy fallbacks are used silently —
-same results, slower on large meshes.
+ctypes). If compilation fails a warning says so and the pure-numpy
+fallbacks are used — same results, slower on large meshes (host-side work;
+the device path is the same either way).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -32,7 +34,9 @@ def _compile(name: str = "meshprep", extra_flags: tuple = ()) -> Path | None:
             check=True, capture_output=True, timeout=120,
         )
         return so
-    except Exception:
+    except Exception as e:
+        warnings.warn(f"native {name}.cpp build failed ({type(e).__name__}); "
+                      "using the numpy fallback")
         return None
 
 

@@ -2,7 +2,7 @@
 //
 // Parity: the reference's native decomposition layer — METIS element
 // partitioning (src/metis_decomp.c:372 goma_metis_decomposition) and the
-// C++ ghost/graph builders (src/dp_ghost.cpp). TPU-first replacements:
+// C++ ghost/graph builders (src/dp_ghost.cpp). Replacements:
 //
 //  - rcb_partition: recursive coordinate bisection of element centroids
 //    into nparts balanced, spatially-compact parts (drives the shard_map

@@ -4,7 +4,7 @@ Parity: the reference's actual parallel design (SURVEY §2.4) —
 METIS element partitioning (``src/metis_decomp.c:372``), one-layer ghost
 elements (``src/dp_ghost.cpp:71 generate_ghost_elems``), halo exchange of
 the solution vector (``src/dp_comm.c:48 exchange_dof``), and
-owner-computes assembled rows. TPU-native redesign:
+owner-computes assembled rows. Redesign:
 
 - Host: RCB element partition -> node/dof ownership (a node belongs to the
   lowest part among its touching elements) -> per-device local index space
@@ -126,7 +126,7 @@ class PartitionedProblem:
                     [loc_elems[d][s.block_b], eb[sel]])).astype(np.int64)
 
         # overset (immersed-curve) rows: a row assembles on every device
-        # owning ANY of its gathered dofs (VERDICT r4 item 5: the curve
+        # owning ANY of its gathered dofs (the curve
         # blocks are small — replicate the coupling rows across the owners
         # instead of routing the reference's globally-coupled overlap ACs,
         # src/mm_augc_util.c:2914, through collectives). The row machinery
@@ -1069,7 +1069,7 @@ class PartitionedProblem:
         direct/strong-solver analog of the reference's SuperLU_DIST/MUMPS
         route (src/sl_amesos_interface.cpp:68, dispatch
         src/mm_sol_nonlinear.c:1410-1434). Fully local applies (selective
-        inversion: batched MXU matmuls), no halo traffic."""
+        inversion: batched matmuls), no halo traffic."""
         if getattr(self, "_ndlu", None) is not None:
             return
         from goma_tpu.solvers.ndlu import node_clusters

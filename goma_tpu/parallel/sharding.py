@@ -3,7 +3,7 @@
 Parity: the reference's distributed-processing backend (§2.4 of SURVEY):
 METIS element partitioning (``src/metis_decomp.c:372``), halo exchange
 (``src/dp_comm.c:48 exchange_dof``), collective reductions
-(``src/dp_utils.c``). TPU-native redesign: one SPMD program over a
+(``src/dp_utils.c``). Redesign: one SPMD program over a
 ``jax.sharding.Mesh``; the element loop of every block is sharded over the
 "elems" axis with ``shard_map``; each device scatters its partial residual /
 CSR values with ``segment_sum`` and a single ``psum`` over ICI replaces the

@@ -7,7 +7,7 @@ blending (``load_lsi:5305``, ``level_set_property:4390``), renormalization
 and the diffuse-interface capillary force of
 ``src/mm_fill_ls_capillary_bcs.c`` (here the CSF volume form).
 
-TPU-first: the fill equation is just another vmapped kernel; property
+Design: the fill equation is just another vmapped kernel; property
 blending is closure composition; renormalization runs on host between time
 steps (exact distance to the linearly-interpolated zero contour — the
 HUYGENS idea) since it is O(steps) rare and reshapes no arrays.
@@ -44,7 +44,7 @@ def delta(F, eps):
 
 def sharp_heaviside(F):
     """Exact step H(F). Combined with a subcell ("subgrid") quadrature rule
-    (``Problem(quad_order=("subcell", n, base))``) this is the TPU analog of
+    (``Problem(quad_order=("subcell", n, base))``) this is the on-device analog of
     the reference's sharp subelement integration
     (``get_subelement_integration_pts``, ``src/mm_fill.c:664-678``): property
     jumps integrate sharply instead of over a smeared band. Note AD sees a

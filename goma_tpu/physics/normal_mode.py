@@ -4,7 +4,7 @@ Parity: the reference's LSA_3D_OF_2D machinery (``src/ac_stability.c``
 wavenumber loop :468, ``src/ac_stability_util.c do_LSA_mods:84`` — trig
 0/1-factored basis functions assembled in two passes per wavenumber).
 
-TPU-first redesign: instead of mutating basis tables and double-assembling,
+Redesign: instead of mutating basis tables and double-assembling,
 the z-periodic perturbation
 
     (u_hat, v_hat, p_hat, T_hat) ~ f(x, y) cos(beta z),  w_hat ~ sin(beta z)

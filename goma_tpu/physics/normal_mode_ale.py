@@ -5,7 +5,7 @@ Parity: the reference's LSA_3D_OF_2D machinery with MESH mode equations
 per wavenumber, including the mesh-displacement sensitivities that
 hand-coded ``load_fv_mesh_derivs`` provides).
 
-TPU-first redesign — ride the REAL problem's AD Jacobian. For a z-periodic
+Redesign — ride the REAL problem's AD Jacobian. For a z-periodic
 perturbation of a 2D ALE base state,
 
     (u_hat, p_hat, T_hat, d_hat) ~ f(x, y) cos(beta z),  w_hat ~ sin(beta z)

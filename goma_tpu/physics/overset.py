@@ -8,7 +8,7 @@ forces back to the fluid (BAAIJENS_FLUID_SOLID / LAGRANGE_NO_SLIP BCs), with
 the multipliers created as overlap augmenting conditions
 (``src/mm_augc_util.c:2914 create_overlap_acs``).
 
-TPU-first redesign: the multipliers are ordinary P0 elemental dofs on an
+Redesign: the multipliers are ordinary P0 elemental dofs on an
 immersed BAR block (``goma_tpu.mesh.immersed``), the point-in-fluid-element
 localization is a host precomputation (centroid kd-tree + isoparametric
 Newton inversion), and ALL coupling Jacobian blocks (the reference's

@@ -12,13 +12,13 @@ and convergence on a weighted update norm 10x tighter than the outer
 nonlinear solver (EXTRA_ACCURACY=0.1). The converged ``sdot`` feeds
 surface fluxes of the gas species (``src/mm_fill_species.c:2376``).
 
-TPU-first redesign: the whole damped pseudo-transient Newton is ONE
+Redesign: the whole damped pseudo-transient Newton is ONE
 ``lax.while_loop`` over a fixed-shape state, the dim x dim Jacobian comes
 from ``jax.jacfwd`` of the residual closure (replacing Surface Chemkin's
 hand-coded ``skdsdx_``), the linear solve is a tiny dense
 ``jnp.linalg.solve``, and the solver ``vmap``s over all surface points —
 thousands of independent few-dof Newton solves become one batched dense
-kernel on the MXU instead of a per-point LAPACK loop.
+kernel instead of a per-point LAPACK loop.
 
 Surface-Chemkin concentration conventions (cgs or SI per ``units``):
 gas species enter rates as concentrations ``X_g * P/(R T)``; surface

@@ -11,7 +11,7 @@ quadrature abscissas recovered from the moments.
 The Wheeler algorithm builds the Jacobi matrix from moments; its
 eigendecomposition gives abscissas/weights. For the small fixed N used here
 (N <= 3) the symmetric tridiagonal eigenproblem is solved with explicit
-formulas (N=1,2) — TPU-safe, no LAPACK.
+formulas (N=1,2) — backend-portable, no LAPACK.
 """
 
 from __future__ import annotations

@@ -250,7 +250,7 @@ class TanhHystSaturation:
     (``evaluate_sat_hyst_criterion``, mm_fill_porous.c:11210; the nodal
     variant rf_util.c:3982).
 
-    TPU-first state design: the reversal state lives in three NODAL fields
+    State design: the reversal state lives in three NODAL fields
     (curve type 0=wetting/1=draining, S at reversal, p_c at reversal)
     passed as external fields — piecewise-frozen inside each time step, so
     the jitted residual stays branch-free (one ``jnp.where`` over the two

@@ -6,7 +6,7 @@ of ``rf_solve_segregated.c`` (``assemble_ustar:33``, ``assemble_pstar:199``,
 an intermediate velocity u* with lagged pressure, a pressure-increment
 Poisson solve, and the divergence-free correction.
 
-TPU-first: u* and the increment are two small Problems sharing the mesh;
+Design: u* and the increment are two small Problems sharing the mesh;
 the previous step's fields enter as frozen external fields (values +
 gradients at qps), dt as a traced parameter, so each substep is one jitted
 linear solve. The correction is a lumped-L2 nodal projection

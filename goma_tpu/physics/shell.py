@@ -1,7 +1,7 @@
 """Shell equations on curve (BAR) blocks embedded in 2D meshes.
 
 Parity: reference shell family ``src/mm_fill_shell.c`` (40+ shell equations)
-+ ``src/mm_shell_util.c`` shell-bulk "friend" coupling. TPU-first design:
++ ``src/mm_shell_util.c`` shell-bulk "friend" coupling. Design:
 shell elements are ordinary BAR blocks whose connectivity references the
 same global nodes as the bulk boundary, so any variable shared between bulk
 and shell couples automatically through the node-major dof map — the

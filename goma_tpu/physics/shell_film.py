@@ -1,6 +1,6 @@
 """Free-surface thin-film (shell) flow, film particles, and shell energy.
 
-Parity targets (behavior, re-derived for AD/vmapped TPU assembly):
+Parity targets (behavior, re-derived for AD/vmapped assembly):
 
 - ``assemble_film`` (reference ``src/mm_fill_shell.c:8491``): coupled
   SHELL_FILMP / SHELL_FILMH system —

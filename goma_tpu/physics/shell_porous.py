@@ -1,6 +1,6 @@
 """Porous-shell equation family: thin porous layers coupled to lubrication.
 
-Parity targets (behavior, re-derived for the AD/vmapped TPU assembly):
+Parity targets (behavior, re-derived for the AD/vmapped assembly):
 
 - ``assemble_porous_shell_closed`` (``src/mm_fill_shell.c:11117``):
   closed-cell saturation S with capillary imbibition against trapped-gas

@@ -12,7 +12,7 @@ machinery (``belly_flop:77``). Stress form follows solid_stress_tensor:
 with ``strain``/``volume_strain`` from the chosen constitutive model
 (LINEAR small-strain, or NONLINEAR Green-Lagrange / St. Venant-Kirchhoff).
 
-TPU-first design differences:
+Design differences:
 - all sensitivities (dTT_dx, dTT_drs, dTT_dT ... in the reference) come from
   AD of this residual; none are hand-coded;
 - solid inertia uses a *first-order* velocity split (d_dot = v,

@@ -8,10 +8,10 @@ Parity: reference ``src/mm_fill_species.c`` mass-flux dispatch
 (``src/mm_std_models.c:3478``, Phillips/Leighton-Acrivos diffusive-flux
 suspension model).
 
-TPU-first design notes:
+Design notes:
 - Stefan-Maxwell inverts its (ns x ns) coefficient matrix *per quadrature
-  point* with a batched dense solve — small-matrix ``jnp.linalg.solve`` maps
-  to the MXU instead of the reference's per-point LU with scratch arrays.
+  point* with a batched dense solve — small-matrix ``jnp.linalg.solve``
+  instead of the reference's per-point LU with scratch arrays.
 - ``hydro_flux`` needs grad(shear-rate); like the reference (which solves a
   SHEAR_RATE projection equation to get nodal gammadot), we take it from a
   projected nodal field (``ProjectionEquation('shear_rate', ...)``) so the

@@ -223,7 +223,7 @@ class VorticityDirection(Equation):
 
         R_(a,i) = int phi_i (vd_a - v_hat_a(gamma_dot))
 
-    TPU-first: the closed-form cubic + deflation of the reference becomes
+    Design: the closed-form cubic + deflation of the reference becomes
     a batched 3x3 ``jnp.linalg.eigh`` (ascending eigenvalues -> index 1),
     with the sign fixed deterministically by a lexicographic bias (the
     reference's ``bias_eigenvector_to`` against e_1). The solved field

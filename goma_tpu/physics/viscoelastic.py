@@ -180,7 +180,7 @@ def _eig2_sym(A):
     returns (w (..., 2), R (..., 2, 2)) with A = R diag(w) R^T. Guarded at
     the degenerate point (falls back to the identity basis, with AD-safe
     double-where divisions); guard scales with the matrix so it works in
-    f32 on TPU as well as f64."""
+    f32 as well as f64."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 1, 1]
     eps = jnp.finfo(A.dtype).eps
     scale2 = a * a + 2 * b * b + c * c + 1.0  # +1: absolute floor near A=0

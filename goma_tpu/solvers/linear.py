@@ -3,9 +3,9 @@
 Parity: replaces the reference's external solver stack — AztecOO GMRES/ILU
 (``src/sl_aztecoo_interface.cpp``), Amesos/Amesos2 direct
 (``src/sl_amesos_interface.cpp``), PETSc (``src/sl_petsc.c``) — dispatched at
-``src/mm_sol_nonlinear.c:1290-1515``. TPU-first: restarted GMRES with
-vectorized modified Gram-Schmidt (one (m,n) matmul per Arnoldi step, MXU
-friendly), node-block-Jacobi preconditioning with batched dense inversion,
+``src/mm_sol_nonlinear.c:1290-1515``. Here: restarted GMRES with
+vectorized modified Gram-Schmidt (one (m,n) matmul per Arnoldi step),
+node-block-Jacobi preconditioning with batched dense inversion,
 and a host scipy direct solve as the validation escape hatch (UMFPACK
 parity, ``src/sl_umf.c``).
 """
@@ -98,7 +98,7 @@ class BlockJacobi:
         A = A + jnp.where(fix[:, :, None] & eye[None], 1.0, 0.0)
         from goma_tpu.utils.la import gj_inv
 
-        Binv = gj_inv(A)  # backend/dtype-portable (TPU f64 safe)
+        Binv = gj_inv(A)  # backend/dtype-portable
         # final guard against residual singularity
         Binv = jnp.where(jnp.isfinite(Binv), Binv, 0.0)
         if self.store_dtype is not None:
@@ -123,9 +123,9 @@ class Vanka:
     """Element-block additive Schwarz ("Vanka") smoother.
 
     The classic saddle-point multigrid smoother (coupled local solves over
-    each element's full dof set, including pressure), recast TPU-first: the
-    per-element matrices are gathered from the CSR values by a precomputed
-    position map and inverted as ONE batched dense inverse on the MXU
+    each element's full dof set, including pressure), recast for batched
+    device work: the per-element matrices are gathered from the CSR values
+    by a precomputed position map and inverted as ONE batched dense inverse
     (n_elem x nl x nl); apply is gather + batched matvec + weighted
     scatter-add. Reference analog: coupled node/element relaxation the
     reference delegates to Ifpack/ML smoothers (src/sl_aztecoo_interface.cpp).
@@ -194,8 +194,8 @@ class Vanka:
             tables[f"{key_prefix}:w{bi}"] = jax.device_put(wts[g])
             flat_dofs.append(g.ravel())
         # scatter-free combine: per dof, the positions of its contributions in
-        # the concatenated per-block (zb * w).ravel() arrays (TPU scatters are
-        # serial-slow; this turns the Schwarz sum into a padded gather + sum)
+        # the concatenated per-block (zb * w).ravel() arrays (this turns the
+        # Schwarz sum into a padded gather + sum instead of a scatter)
         flat = np.concatenate(flat_dofs)
         L = flat.shape[0]
         order = np.argsort(flat, kind="stable")
@@ -294,7 +294,7 @@ class FieldSplit:
     with S_hat ~ -(1/mu) M_p the lumped pressure mass matrix — the classic
     Cahouet-Chabard / pressure-mass Schur approximation. Plays the role of
     the reference's PCD Schur-complement preconditioner
-    (``src/sl_petsc_pcd.c:115 PCDShellPCApply``), built TPU-style: batched
+    (``src/sl_petsc_pcd.c:115 PCDShellPCApply``), built from batched
     dense node blocks + diagonal Schur, no triangular solves.
     """
 
@@ -401,14 +401,14 @@ def gmres(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0, restart=40, maxi
         # residual estimate |(Q e1 beta)[j+1]| enables EARLY EXIT inside the
         # cycle — restarting is what stagnates GMRES on these nonsymmetric
         # saddle systems, so the restart is sized long and unused steps are
-        # skipped via lax.cond (one compiled branch executes on TPU).
+        # skipped via lax.cond (only one compiled branch executes).
         Q = jnp.eye(m + 1, dtype=dtype)
 
         def live(carry, j):
             V, H, Q, done, cnt = carry
             w = matvec(precond(V[j]))
             # vectorized CGS2: orthogonalize against all previous at once.
-            # HIGHEST: TPU default matmul precision is bf16 passes, which
+            # HIGHEST: a reduced-precision default (TF32 or bf16 passes)
             # destroys Krylov-basis orthogonality in f32
             hi = jax.lax.Precision.HIGHEST
             mask = (jnp.arange(m + 1) <= j).astype(dtype)

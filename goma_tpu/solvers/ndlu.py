@@ -1,9 +1,10 @@
 """Nested-dissection multifrontal LU, factorized and solved ON DEVICE.
 
-TPU-native replacement for the reference's serial/parallel sparse direct
+On-device replacement for the reference's serial/parallel sparse direct
 solvers (``src/sl_umf.c`` UMFPACK, ``src/sl_lu.c`` sparse1.4, Amesos
 SuperLU/MUMPS dispatch ``src/mm_sol_nonlinear.c:1290-1515``). Those run on
-the host CPU; this one maps the whole factorization onto the MXU:
+the host CPU; this one maps the whole factorization onto batched dense
+linear algebra on the accelerator:
 
 - **Host symbolic phase** (once per sparsity pattern): recursive graph
   bisection of the adjacency of A+A^T (multilevel KWAY native kernel, the
@@ -17,19 +18,16 @@ the host CPU; this one maps the whole factorization onto the MXU:
   deepest-first; all fronts of a level factor TOGETHER as one batched dense
   LU (``jax.lax.linalg.lu`` with partial pivoting *within* the fully-summed
   block) + two batched triangular solves + one batched matmul for the Schur
-  complement — MXU work with static shapes. Front assembly is scatter-free:
-  every front slot has at most one source (CSR entry, child-0 Schur slot,
-  child-1 Schur slot), so three precomputed gather maps build the whole
-  level in three gathers (TPU scatters serialize; gathers don't).
+  complement, all with static shapes. Front assembly is a unique-index
+  scatter of the CSR entries plus one-hot placement matmuls for the
+  children's Schur complements.
 - **Static pivoting** (SuperLU_DIST GESP-style): no pivoting across the
   own/boundary split; tiny pivots are boosted to tau*max|diag| and the
   solve is wrapped in iterative refinement, which also recovers f64-quality
-  solutions from an f32 factorization (the TPU-native mixed-precision play:
-  v5e has no native f64).
+  solutions from an f32 factorization.
 
 Complexity is the classic ND bound (O(n^{3/2}) flops / O(n log n) memory in
-2D) but the constant lives on a 100+ TFLOP/s systolic array instead of one
-x86 core.
+2D), carried out as batched dense kernels instead of scalar sparse loops.
 """
 
 from __future__ import annotations
@@ -39,31 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.lax.linalg import triangular_solve as _lax_triangular_solve
-
-
-def triangular_solve(lu, B, **kw):
-    """Batched triangular solve, CHUNKED over the batch (front) axis.
-
-    XLA lowers batched triangular_solve to an InvertDiagBlocks custom call
-    that stack-allocates the whole batch of diagonal-block inverses in
-    scoped VMEM; past ~16 MB (e.g. 280 fronts of 81x81 at leaf_max=96 on
-    v5e) compilation fails with "Ran out of memory in memory space vmem".
-    Bounding each call's padded batch bytes keeps the allocation inside the
-    scoped limit; chunks are static slices, so this is a handful of
-    sequential kernels, not a dynamic loop."""
-    nn, m = lu.shape[0], lu.shape[-1]
-    # v5e native tile is (8, 128) f32; the custom call also keeps a work
-    # copy, so budget half the 16 MB scoped limit
-    padded = (-(-m // 8) * 8) * (-(-m // 128) * 128) * 4
-    per = max(1, (4 << 20) // max(padded, 1))
-    if nn <= per:
-        return _lax_triangular_solve(lu, B, **kw)
-    outs = [
-        _lax_triangular_solve(lu[i:i + per], B[i:i + per], **kw)
-        for i in range(0, nn, per)
-    ]
-    return jnp.concatenate(outs, axis=0)
+from jax.lax.linalg import triangular_solve
 
 from goma_tpu.fem.sparsity import CSRPattern
 
@@ -84,10 +58,8 @@ class _Level:
     # child Schur extend-add as PERMUTED DENSE BLOCKS: the child's Schur
     # complement is dense on its boundary, so extend-add is
     # F[q] += P S_child P^T with P the (f, cb) one-hot placing child
-    # boundary slots into the parent front — two MXU matmuls instead of an
-    # arbitrary (nn, f, f) gather (measured 10-40x cheaper on v5e: XLA
-    # lowers arbitrary gathers element-by-element, ~600 ms for a 23M-slot
-    # map vs <25 ms for the matmuls)
+    # boundary slots into the parent front — two batched matmuls instead of
+    # an arbitrary (nn, f, f) gather over every front slot
     c0_pos: np.ndarray | None  # (nn, cb) parent-front slot of child-0
     #                            boundary element i; pad -> f (one-hot 0)
     c0_idx: np.ndarray | None  # (nn,) child-0 lvl_pos in child level
@@ -153,9 +125,9 @@ def build_nd_tree(pattern: CSRPattern, leaf_max: int = 96, debug: bool = False,
     operate on the CLUSTER graph, so all dofs of a cluster land in the
     same tree node. Passing the mesh-node clustering keeps every saddle
     (pressure) dof in the same front as its own node's conjugate momentum
-    rows, the structural guarantee that the defer-ordered unpivoted front
-    elimination fills the saddle diagonals before they pivot (the per-deck
-    leaf_max tuning this replaces: docs/PERFORMANCE.md r2 notes)."""
+    rows, the structural guarantee that the defer-ordered front elimination
+    fills the saddle diagonals before they pivot, whatever the per-deck
+    leaf_max."""
     import time as _time
 
     import scipy.sparse as sp
@@ -384,12 +356,9 @@ def build_nd_tree(pattern: CSRPattern, leaf_max: int = 96, debug: bool = False,
         pad_node = np.concatenate(pad_node) if pad_node else np.empty(0, np.int32)
         pad_slot = np.concatenate(pad_slot) if pad_slot else np.empty(0, np.int32)
 
-        # COMPACT (lin, src) pairs only — the dense (nn, f, f) gather maps
-        # are materialized ON DEVICE in NDLU.__init__ (host first-touch page
-        # faults are ~100x slower than normal inside the microVM this runs
-        # in; HBM has no such problem). Sentinel convention: dense-map slot 0
-        # is the dummy, real sources are stored +1 (the source arrays get a
-        # zero prepended on device).
+        # COMPACT (lin, src) pairs only: the device scatters the CSR entries
+        # into the level's (nn, f, f) front array (NDLU._factor_body), so no
+        # dense per-slot map is ever built on the host.
         if nn * f * f + 1 >= np.iinfo(np.int32).max:
             raise RuntimeError("ndlu: level front array exceeds int32 "
                                "indexing; raise leaf_max")
@@ -430,6 +399,19 @@ def build_nd_tree(pattern: CSRPattern, leaf_max: int = 96, debug: bool = False,
 
 
 # ------------------------------------------------------------------ numeric
+def gesp_boost(lu_d, pivot_tol: float):
+    """GESP static-pivot boost on a batch of packed LU diagonals: pivots
+    below ``pivot_tol * max|diag|`` of their front are raised to that
+    size, keeping their sign."""
+    s = lu_d.shape[-1]
+    dg = jnp.diagonal(lu_d, axis1=1, axis2=2)
+    mx = jnp.max(jnp.abs(dg), axis=1, keepdims=True)
+    tau = pivot_tol * jnp.maximum(mx, 1e-30)
+    fix = jnp.where(jnp.abs(dg) < tau, jnp.where(dg < 0, -tau, tau), dg)
+    ar = jnp.arange(s)
+    return lu_d.at[:, ar, ar].set(fix)
+
+
 class NDLU:
     """Device multifrontal LU for a fixed :class:`CSRPattern`.
 
@@ -453,37 +435,29 @@ class NDLU:
 
     def __init__(self, pattern: CSRPattern, leaf_max: int = 96,
                  dtype=jnp.float32, pivot_tol: float = 1e-8,
-                 lu_block: int | None = 128,
+                 lu_block: int | None = None,
                  defer_dofs: np.ndarray | None = None,
-                 front_lu: str = "auto", invert: bool = False,
+                 invert: bool = False,
                  clusters: np.ndarray | None = None):
         self.pattern = pattern
         self.dtype = dtype
         self.pivot_tol = pivot_tol
         # invert=True: SELECTIVE INVERSION (SuperLU_DIST-style) — L/U are
         # explicitly inverted at factor time so every solve application is
-        # a batched MXU matmul instead of a sequential triangular solve
-        # (~5x faster applies on v5e). The inverse-apply rounding error is
-        # ~eps*cond(front), which a KRYLOV wrapper absorbs but stationary
-        # iterative refinement may not — use for preconditioning
-        # (precond="ndlu"), keep False for tpu_direct refinement solves.
+        # a batched matmul instead of a sequential triangular solve. The
+        # inverse-apply rounding error is ~eps*cond(front), which a KRYLOV
+        # wrapper absorbs but stationary iterative refinement may not — use
+        # for preconditioning (precond="ndlu"), keep False for tpu_direct
+        # refinement solves.
         self.invert = invert
-        # front factorization backend: "pallas" = one-kernel unpivoted LU
-        # (whole front in VMEM, no per-pivot dispatch; requires defer_dofs
-        # ordering on saddle systems), "lax" = lax.linalg.lu with partial
-        # pivoting (optionally panel-blocked via lu_block), "auto" = pallas
-        # on TPU, lax elsewhere. interpret-mode pallas covers CPU testing.
-        if front_lu == "auto":
-            front_lu = "pallas" if jax.default_backend() == "tpu" else "lax"
-        self.front_lu = front_lu
-        self._pl_interpret = jax.default_backend() != "tpu"
-        # blocked right-looking LU with pivoting restricted to bs x bs
-        # diagonal blocks: lax.linalg.lu costs ~1 ms PER sequential pivot
-        # step on TPU (overhead-, not FLOP-bound), so factoring a front in
-        # ceil(s/bs) block steps (small-block lu + 2 triangular solves + 1
-        # matmul each) is ~bs/3 x faster. Block-local row perms act on
-        # disjoint row slices, so they compose into one block-diagonal
-        # permutation and the solve path is unchanged. None = plain lu.
+        # lu_block=bs: blocked right-looking LU with pivoting restricted to
+        # bs x bs diagonal blocks — a front is factored in ceil(s/bs) block
+        # steps (small-block lu + 2 triangular solves + 1 matmul each).
+        # Block-local row perms act on disjoint row slices, so they compose
+        # into one block-diagonal permutation and the solve path is
+        # unchanged. None (default) = one batched lu per level with partial
+        # pivoting over the whole fully-summed block: on the H100 that was
+        # the fastest factor of the 64x64 cavity (PERF.md, PR 1).
         self.lu_block = lu_block
         self.levels = build_nd_tree(pattern, leaf_max=leaf_max,
                                     defer_dofs=defer_dofs,
@@ -491,11 +465,8 @@ class NDLU:
         self.n = pattern.n
         # device tables, passed as jit arguments (too big for jaxpr consts).
         # Front assembly uses the COMPACT (lin, src) pairs with a
-        # unique-index scatter-set on device: the earlier dense (nn, f, f)
-        # gather maps paid XLA's element-by-element parameter-index gather
-        # over EVERY front slot (~86M slots, 646 ms on the 64x64 cavity);
-        # the compact scatter touches only the ~2.2M real CSR entries
-        # (56 ms; whole factor 713 -> 98 ms, bit-identical).
+        # unique-index scatter-set on device: it touches only the real CSR
+        # entries, not every slot of the (nn, f, f) fronts.
         def onehot(pos, f):
             # (nn, f, cb) f32 placement: P[q, pos[q, i], i] = 1; pad slots
             # (pos == f) fall off the end -> all-zero column
@@ -530,17 +501,6 @@ class NDLU:
         self._factor_jit = jax.jit(self._factor)
         self._solve_jit = jax.jit(self._solve)
 
-    def _boost(self, lu_d):
-        """GESP static-pivot boost on the packed LU diagonal."""
-        s = lu_d.shape[-1]
-        dg = jnp.diagonal(lu_d, axis1=1, axis2=2)
-        mx = jnp.max(jnp.abs(dg), axis=1, keepdims=True)
-        tau = self.pivot_tol * jnp.maximum(mx, 1e-30)
-        fix = jnp.where(jnp.abs(dg) < tau,
-                        jnp.where(dg < 0, -tau, tau), dg)
-        ar = jnp.arange(s)
-        return lu_d.at[:, ar, ar].set(fix)
-
     def _block_lu(self, A11):
         """Blocked right-looking LU, pivoting restricted to the diagonal
         blocks. Returns (packed LU (nn, m, m), row perm (nn, m)) with
@@ -561,7 +521,7 @@ class NDLU:
             r0 = k * bs
             D = A[:, r0:r0 + bs, r0:r0 + bs]
             lu_d, _piv, perm_d = jax.lax.linalg.lu(D)
-            lu_d = self._boost(lu_d)
+            lu_d = gesp_boost(lu_d, self.pivot_tol)
             # permute the whole row slab (incl. already-computed L columns),
             # write the packed diagonal LU, eliminate the right panel
             slab = jnp.take_along_axis(A[:, r0:r0 + bs, :],
@@ -583,13 +543,11 @@ class NDLU:
 
     # --- numeric factorization: one batched dense elimination per level
     def _factor(self, vals, tabs):
-        # Pin every dense product in the factorization to exact-f32 MXU
-        # passes: at TPU DEFAULT precision f32 dots round through bf16,
-        # which degrades the Schur complements (X @ Y below) to ~3-digit
-        # accuracy per level — refinement then stalls above the Newton
-        # linear-tolerance on stiff multi-field fronts (observed: the 48^2
-        # Boussinesq deck diverged on TPU while converging in 6 Newton
-        # iterations on CPU with the bit-identical f32 algorithm).
+        # Pin every dense product in the factorization to full f32: a
+        # reduced-precision default (TF32 or bf16 passes) degrades the Schur
+        # complements (X @ Y below) to ~3-digit accuracy per level, and
+        # refinement then stalls above the Newton linear tolerance on stiff
+        # multi-field fronts.
         with jax.default_matmul_precision("highest"):
             return self._factor_body(vals, tabs)
 
@@ -597,19 +555,17 @@ class NDLU:
         vals32 = vals.astype(self.dtype)
         facs = []
         S_prev = None
-        for lev, tb in zip(self.levels, tabs):
+        for i, (lev, tb) in enumerate(zip(self.levels, tabs)):
             f = lev.smax + lev.bmax
             # compact unique-index scatter-set: only real CSR entries touch
-            # the front array (see __init__ note; 7x whole-factor speedup
-            # over the dense per-slot gather on v5e)
+            # the front array (see __init__ note)
             F = jnp.zeros(lev.nn * f * f, self.dtype).at[tb["a_lin"]].set(
                 vals32[tb["a_src"]], unique_indices=True,
             ).reshape(lev.nn, f, f)
             if S_prev is not None and tb["p0"] is not None:
-                # extend-add via one-hot placement matmuls on the MXU
-                # (HIGHEST precision: exact f32 — the 0/1 one-hot only
-                # selects, but default TPU matmul would round the Schur
-                # values to bf16)
+                # extend-add via one-hot placement matmuls (HIGHEST
+                # precision: the 0/1 one-hot only selects, but a
+                # reduced-precision matmul would round the Schur values)
                 hi = jax.lax.Precision.HIGHEST
                 for P, idx in ((tb["p0"], tb["i0"]), (tb["p1"], tb["i1"])):
                     Sc = S_prev[idx].astype(self.dtype)  # (nn, cb, cb)
@@ -619,31 +575,25 @@ class NDLU:
                 F = F.at[tb["pad_node"], tb["pad_slot"], tb["pad_slot"]].add(1.0)
             s = lev.smax
             A11 = F[:, :s, :s]
-            # pallas front kernel holds one (m, m) front + carry in VMEM
-            # (~3 copies); beyond ~1000 f32 columns fall back to lax for
-            # that level (the solve path keys on perm is None per level)
-            if self.front_lu == "pallas" and 1 < s <= 1000:
-                from goma_tpu.solvers.pallas_lu import batched_lu
-
-                lu = batched_lu(A11, pivot_tol=self.pivot_tol,
-                                interpret=self._pl_interpret)
-                perm = None  # unpivoted: defer_dofs ordering + GESP boost
-            elif self.lu_block and s > self.lu_block:
-                lu, perm = self._block_lu(A11)  # (nn, m, m), (nn, m)
-            else:
-                lu, _piv, perm = jax.lax.linalg.lu(A11)
-                lu = self._boost(lu)
-            m = lu.shape[-1]  # == s, or the bs-padded size under lu_block
-            if self.invert:
-                # invert ONCE so later applies (A12/A21 panels here, every
-                # substitution in solve()) are batched MXU matmuls
-                eye = jnp.broadcast_to(jnp.eye(m, dtype=self.dtype),
-                                       (lev.nn, m, m))
-                fwd = triangular_solve(lu, eye, left_side=True, lower=True,
-                                       unit_diagonal=True)
-                bwd = triangular_solve(lu, eye, left_side=True, lower=False)
-            else:
-                fwd = bwd = lu  # substitution path (exact triangular solves)
+            # named per level so a profiler trace attributes the front
+            # factor (LU + boost + inversion) to its level
+            with jax.named_scope(f"ndlu_l{i}_front_lu"):
+                if self.lu_block and s > self.lu_block:
+                    lu, perm = self._block_lu(A11)  # (nn, m, m), (nn, m)
+                else:
+                    lu, _piv, perm = jax.lax.linalg.lu(A11)
+                    lu = gesp_boost(lu, self.pivot_tol)
+                m = lu.shape[-1]  # == s, or the bs-padded size under lu_block
+                if self.invert:
+                    # invert ONCE so later applies (A12/A21 panels here, every
+                    # substitution in solve()) are batched matmuls
+                    eye = jnp.broadcast_to(jnp.eye(m, dtype=self.dtype),
+                                           (lev.nn, m, m))
+                    fwd = triangular_solve(lu, eye, left_side=True, lower=True,
+                                           unit_diagonal=True)
+                    bwd = triangular_solve(lu, eye, left_side=True, lower=False)
+                else:
+                    fwd = bwd = lu  # substitution path (exact triangular solves)
             if lev.bmax:
                 A12 = F[:, :s, s:]
                 A21 = F[:, s:, :s]
@@ -655,8 +605,7 @@ class NDLU:
                     A21 = jnp.concatenate(
                         [A21, jnp.zeros((lev.nn, lev.bmax, m - s),
                                         self.dtype)], axis=2)
-                A12p = (A12 if perm is None else
-                        jnp.take_along_axis(A12, perm[:, :, None], axis=1))
+                A12p = jnp.take_along_axis(A12, perm[:, :, None], axis=1)
                 if self.invert:
                     Y = fwd @ A12p        # == L^{-1} P A12
                     X = A21 @ bwd         # == A21 U^{-1}
@@ -677,9 +626,8 @@ class NDLU:
         return self._factor_jit(vals, self.tabs)
 
     # --- forward/backward substitution through the tree. invert=True:
-    # batched matvecs against the precomputed inverses (MXU; HIGHEST
-    # precision). invert=False: exact triangular substitution (pallas
-    # in-kernel sweep for unpivoted fronts).
+    # batched matvecs against the precomputed inverses (HIGHEST
+    # precision). invert=False: exact triangular substitution.
     def _solve(self, facs, b, tabs):
         n = self.n
         hi = jax.lax.Precision.HIGHEST
@@ -691,18 +639,11 @@ class NDLU:
                 bs = jnp.concatenate(
                     [bs, jnp.zeros((bs.shape[0], m - lev.smax), bs.dtype)],
                     axis=1)
+            bs = jnp.take_along_axis(bs, perm, axis=1)
             if self.invert:
-                if perm is not None:
-                    bs = jnp.take_along_axis(bs, perm, axis=1)
                 y = jnp.einsum("nij,nj->ni", fwd, bs, precision=hi)
-            elif perm is None:  # pallas factor: in-kernel substitution
-                from goma_tpu.solvers.pallas_lu import batched_trsv
-
-                y = batched_trsv(fwd, bs, lower=True,
-                                 interpret=self._pl_interpret)
             else:
-                bsp = jnp.take_along_axis(bs, perm, axis=1)
-                y = triangular_solve(fwd, bsp[..., None], left_side=True,
+                y = triangular_solve(fwd, bs[..., None], left_side=True,
                                      lower=True, unit_diagonal=True)[..., 0]
             w = w.at[tb["own_w"]].set(y[:, :lev.smax])
             if lev.bmax:
@@ -720,11 +661,6 @@ class NDLU:
                 y = y - jnp.einsum("nsb,nb->ns", Y, w[tb["bnd_w"]])
             if self.invert:
                 x = jnp.einsum("nij,nj->ni", bwd, y, precision=hi)
-            elif perm is None:
-                from goma_tpu.solvers.pallas_lu import batched_trsv
-
-                x = batched_trsv(bwd, y, lower=False,
-                                 interpret=self._pl_interpret)
             else:
                 x = triangular_solve(bwd, y[..., None], left_side=True,
                                      lower=False)[..., 0]
@@ -745,20 +681,18 @@ class NDLU:
         refinement continues (up to ``max_refine`` total) until
         ||b - A x|| <= rel_tol * ||b|| — the f32-front refinement rate is
         ~10x/sweep, but where it lands relative to a caller's guard varies
-        with hardware rounding (TPU vs CPU), so a fixed count alone can
-        strand the solve just above the guard.
+        with the backend's rounding, so a fixed count alone can strand the
+        solve just above the guard.
 
         ``return_rel``: also return the measured ||b - A x|| / ||b|| of
         the RETURNED iterate, or None when the loop exited without
         measuring it (caller decides whether to recompute — each measure
-        costs a matvec plus a host sync, which on a remote-dispatch TPU
-        is comparable to a whole substitution sweep).
+        costs a matvec plus a host sync).
 
         ``sweep``: optional FUSED step ``(facs, b, x) -> (x_new, rn)``
         computing ``r = b - A x; rn = ||r||; x_new = x + solve(facs, r)``
-        in ONE jitted dispatch (the separate matvec/norm/solve calls cost
-        ~3 host->device round trips each on a remote-dispatch TPU). The
-        math is identical to the unfused path."""
+        in ONE jitted dispatch instead of separate matvec/norm/solve
+        dispatches. The math is identical to the unfused path."""
         import jax as _jax
 
         x = self.solve(facs, b).astype(b.dtype)

@@ -2,13 +2,13 @@
 
 The reference's parallel story includes distributed direct solves (Amesos
 SuperLU_DIST / MUMPS, ``src/sl_amesos_interface.cpp:68``, dispatch
-``src/mm_sol_nonlinear.c:1410-1434``). The TPU-native counterpart built
-here: every device factors its OWNED subdomain matrix with the same
-on-device nested-dissection multifrontal LU the single-chip path uses
+``src/mm_sol_nonlinear.c:1410-1434``). The counterpart built here: every
+device factors its OWNED subdomain matrix with the same on-device
+nested-dissection multifrontal LU the single-device path uses
 (``solvers/ndlu.py``), and the factors act as the (restricted additive
 Schwarz) subdomain solve of the partitioned Krylov iteration — fully
 local applies, no halo traffic, selective inversion so every substitution
-is a batched MXU matmul.
+is a batched matmul.
 
 SPMD constraint: one program runs on all devices, so per-device trees are
 padded to a common SHAPE ENVELOPE — the per-level (nn, smax, bmax) maxima
@@ -26,7 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from goma_tpu.fem.sparsity import CSRPattern
-from goma_tpu.solvers.ndlu import build_nd_tree, triangular_solve
+from jax.lax.linalg import triangular_solve
+
+from goma_tpu.solvers.ndlu import build_nd_tree, gesp_boost
 
 
 def _local_pattern(n: int, rows: np.ndarray, cols: np.ndarray) -> CSRPattern:
@@ -59,16 +61,12 @@ class StackedNDLU:
     """
 
     def __init__(self, locals_, mo: int, max_nnz: int, leaf_max: int = 96,
-                 dtype=jnp.float32, pivot_tol: float = 1e-8,
-                 interpret: bool | None = None):
+                 dtype=jnp.float32, pivot_tol: float = 1e-8):
         self.mo = mo
         self.max_nnz = max_nnz
         self.dtype = dtype
         self.pivot_tol = pivot_tol
         self.nd = len(locals_)
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        self._interpret = interpret
 
         trees = []
         for loc in locals_:
@@ -186,15 +184,13 @@ class StackedNDLU:
     def factor(self, vals, tabs1):
         """vals: this device's (max_nnz,) CSR values slice. Returns the
         per-level (fwd, bwd, X, Y) factor pytree (selective inversion)."""
-        # exact-f32 MXU passes for the panel/Schur products below — TPU
-        # DEFAULT precision rounds f32 dots through bf16, degrading the
-        # Schur complements past what refinement recovers (see ndlu._factor)
+        # full-f32 panel/Schur products below — a reduced-precision default
+        # degrades the Schur complements past what refinement recovers
+        # (see ndlu.NDLU._factor)
         with jax.default_matmul_precision("highest"):
             return self._factor_body(vals, tabs1)
 
     def _factor_body(self, vals, tabs1):
-        from goma_tpu.solvers.pallas_lu import batched_lu
-
         hi = jax.lax.Precision.HIGHEST
         vx = jnp.concatenate([vals.astype(self.dtype),
                               jnp.zeros(1, self.dtype)])
@@ -219,20 +215,18 @@ class StackedNDLU:
                 [tb["padD"].astype(self.dtype),
                  jnp.zeros((nn, b), self.dtype)], axis=1)
             F = F + padD[:, :, None] * eyef[None]
-            A11 = F[:, :s, :s]
-            if s > 1:
-                lu = batched_lu(A11, pivot_tol=self.pivot_tol,
-                                interpret=self._interpret)
-            else:
-                d_ = A11[:, 0, 0]
-                tau = self.pivot_tol * jnp.maximum(jnp.abs(d_), 1e-30)
-                lu = jnp.where(jnp.abs(d_) < tau,
-                               jnp.where(d_ < 0, -tau, tau),
-                               d_)[:, None, None]
-            eye = jnp.broadcast_to(jnp.eye(s, dtype=self.dtype), (nn, s, s))
-            fwd = triangular_solve(lu, eye, left_side=True, lower=True,
+            # partial pivoting inside the fully-summed block, then the GESP
+            # boost: A11[perm] = L U, so A11^-1 = U^-1 L^-1 P with P the
+            # row permutation eye[perm]. Folding P into fwd keeps Y, X, the
+            # Schur update and solve() free of any explicit permutation.
+            lu, _piv, perm = jax.lax.linalg.lu(F[:, :s, :s])
+            lu = gesp_boost(lu, self.pivot_tol)
+            eye = jnp.eye(s, dtype=self.dtype)
+            fwd = triangular_solve(lu, eye[perm], left_side=True, lower=True,
                                    unit_diagonal=True)
-            bwd = triangular_solve(lu, eye, left_side=True, lower=False)
+            bwd = triangular_solve(
+                lu, jnp.broadcast_to(eye, (nn, s, s)), left_side=True,
+                lower=False)
             if b:
                 Y = fwd @ F[:, :s, s:]
                 X = F[:, s:, :s] @ bwd

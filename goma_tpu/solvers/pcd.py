@@ -11,10 +11,10 @@ pressure-space operators assembled in ``src/sl_petsc.c set_pcd_matrices:390``:
     S^-1 r_p  ~=  Ap^-1 Fp Mp^-1 r_p  +  Mp_mu^-1 r_p
 
 combined with block-Jacobi Richardson sweeps on the velocity block (the
-block-triangular field split). TPU-first redesign of the PETSc machinery:
+block-triangular field split). Redesign of the PETSc machinery:
 
 - Ap is formed once on host (static geometry) and turned into an explicit
-  dense f32 inverse — each application is one MXU matmul instead of an inner
+  dense f32 inverse — each application is one dense matmul instead of an inner
   KSP solve;
 - Fp is *matrix-free*: the convection term is re-evaluated from the current
   velocity at quadrature points (stored at factor time), so no sparse
@@ -138,7 +138,7 @@ class PCDFieldSplit:
         tables["pcd:rmask"] = jax.device_put(rmask)
 
         # dense inverse once (static geometry/viscosity); f32 is plenty for a
-        # preconditioner and one (np, np) matmul per application rides the MXU
+        # preconditioner, and each application is one (np, np) matmul
         Ap_inv = np.linalg.inv(Ap).astype(np.float32)
         tables["pcd:Apinv"] = jax.device_put(Ap_inv)
         inv_mp = np.where(Mp_diag > 0, 1.0 / np.maximum(Mp_diag, 1e-300), 0.0)

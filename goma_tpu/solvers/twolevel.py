@@ -2,7 +2,7 @@
 coarse solve on device.
 
 Replaces the external AMG/ILU stacks the reference leans on (Trilinos
-Ifpack/ML via ``src/sl_aztecoo_interface.cpp``, PETSc PC). TPU-first design:
+Ifpack/ML via ``src/sl_aztecoo_interface.cpp``, PETSc PC). Design:
 
 - Restriction/prolongation P is the nodal embedding of the Q1/P1 subspace
   (corner-node dofs) into the full mixed space, built once on host; applying
@@ -11,8 +11,8 @@ Ifpack/ML via ``src/sl_aztecoo_interface.cpp``, PETSc PC). TPU-first design:
 - The Galerkin coarse operator A_c = P^T A P is *recomputed from the CSR
   values every factorization* by one big ``segment_sum`` into a dense
   (nc, nc) matrix (precomputed index/weight expansion per fine nnz), then
-  LU-factored with ``jax.scipy.linalg.lu_factor`` — dense batched compute
-  that maps straight onto the MXU instead of sparse triangular solves.
+  LU-factored with ``jax.scipy.linalg.lu_factor`` — dense device compute
+  instead of sparse triangular solves.
 - Smoother: damped node-block-Jacobi (batched dense inverses).
 
 The coarse space contains the full saddle-point structure (velocity Q1 +
@@ -167,7 +167,7 @@ class TwoLevel:
     store_dtype = None
 
     def __init__(self, problem, smooth_damp: float = 0.7, pre_sweeps: int = 1,
-                 post_sweeps: int = 1, coarse_solve: str | None = None,
+                 post_sweeps: int = 1, coarse_solve: str = "lu",
                  smoother: str = "bj"):
         if smoother == "vanka":
             from goma_tpu.solvers.linear import Vanka
@@ -185,18 +185,15 @@ class TwoLevel:
         self.smooth_damp = smooth_damp
         self.pre_sweeps = pre_sweeps
         self.post_sweeps = post_sweeps
-        if coarse_solve is None:
-            # TPU: triangular solves are sequential and slow; an explicit
-            # inverse turns every coarse application into one MXU matmul.
-            # The TPU inverse runs in f32 (the LU expander is f32-only);
-            # iterative refinement in the working dtype recovers accuracy.
-            coarse_solve = "inv" if jax.default_backend() == "tpu" else "lu"
+        # "lu": dense LU of the coarse operator + two triangular solves per
+        # application. "inv": an explicit f32 inverse, so each application
+        # is one dense matvec (kept as an option; not measured on the GPU).
         self.coarse_solve = coarse_solve
         # the f32 saddle-split inverse alone (~0.1 rel err) is enough for a
         # preconditioner application (measured: same Krylov iteration count
         # as 3 refinement steps); each step costs two dense (nc, nc) matvecs
         # of HBM traffic. Raise for tougher decks via the attribute.
-        self.refine_steps = 0 if coarse_solve == "inv" else 0
+        self.refine_steps = 0
         # saddle-diagonal stabilization of the equal-order Galerkin coarse
         # (see factor()); relative to the mean elliptic diagonal. 1e-6 is
         # far below preconditioner-quality resolution yet bounds the
@@ -215,7 +212,7 @@ class TwoLevel:
         # per-nnz expansion for A_c = P^T A P. Contributions are scattered
         # into the *sparse* coarse pattern (precomputed here) — scattering
         # directly into the dense (nc, nc) would be a segment_sum with nc^2
-        # segments, which compiles/runs pathologically on TPU. The sparse
+        # segments, which compiles and runs pathologically. The sparse
         # coarse values are then densified with one cheap scatter.
         pat = problem.pattern
         k = cids.shape[1]

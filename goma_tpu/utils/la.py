@@ -1,7 +1,7 @@
 """Small dense linear algebra with explicit formulas.
 
 The isoparametric map Jacobian is (dim, dim) with dim in {1,2,3}; explicit
-cofactor inverses keep the TPU hot path on the VPU (no LU lowering) and are
+cofactor inverses keep the hot path elementwise (no LU lowering) and are
 AD-friendly. Reference analog: ``beer_belly`` hand-codes the same inverses
 (``src/mm_fill_util.c:139``).
 """
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 
 def gj_inv(A):
     """Batched Gauss-Jordan inverse with partial pivoting for small k
-    (..., k, k). Works in any dtype on any backend — unlike
-    ``jnp.linalg.inv``, whose LU expander is f32-only on TPU. All row
-    selection uses one-hot algebra so traced loop indices are fine."""
+    (..., k, k). Works in any dtype on any backend without an LU custom
+    call. All row selection uses one-hot algebra so traced loop indices are
+    fine."""
     k = A.shape[-1]
     if k <= 3:
         _, inv = det_and_inv(A)
@@ -56,8 +56,8 @@ def gj_inv(A):
 
 def blocked_inv(M, max_block: int = 8192):
     """Dense inverse by recursive 2x2 block (Schur-complement) partitioning:
-    the TPU LU custom call overflows scoped VMEM beyond ~10k rows, so large
-    inverses recurse into VMEM-sized LUs glued by MXU matmuls.
+    matrices above ``max_block`` rows recurse into LUs of at most that size
+    glued by full-f32 matmuls; smaller ones are one ``jnp.linalg.inv``.
 
         inv([[A,B],[C,D]]) = [[Ai + Ai B Si C Ai, -Ai B Si],
                               [-Si C Ai,           Si      ]],
@@ -66,11 +66,11 @@ def blocked_inv(M, max_block: int = 8192):
     n = M.shape[0]
     if n <= max_block:
         return jnp.linalg.inv(M)
-    # the Schur-glue matmuls MUST run at full f32: TPU default matmul
-    # precision is bf16 passes, whose ~1e-3 rounding destroys the block
-    # inverse (the LU custom call inside jnp.linalg.inv is full f32 already)
+    # the Schur-glue matmuls MUST run at full f32: a reduced-precision
+    # default (TF32 or bf16 passes) rounds at ~1e-3, which destroys the
+    # block inverse (the LU inside jnp.linalg.inv is full f32 already)
     with jax.default_matmul_precision("highest"):
-        k = ((n + 1) // 2 + 127) // 128 * 128  # split at a lane-aligned midpoint
+        k = ((n + 1) // 2 + 127) // 128 * 128  # split at a 128-aligned midpoint
         k = min(k, n - 1)
         A, B = M[:k, :k], M[:k, k:]
         C, D = M[k:, :k], M[k:, k:]
@@ -112,8 +112,8 @@ def saddle_split_inv(M, k, max_block: int = 8192):
 
 def lstsq_small(H, b):
     """Least squares min||H y - b|| for small tall H (m1, m) via normal
-    equations + Gauss-Jordan (any dtype/backend; replaces jnp.linalg.lstsq
-    whose QR path is f32-only on TPU). Regularized for rank deficiency.
+    equations + Gauss-Jordan (any dtype/backend, no QR custom call).
+    Regularized for rank deficiency.
 
     Normal equations square the conditioning, so the small solve always runs
     in f64 (it is O(m^3) for m ~ restart — negligible) and casts back."""

@@ -3,9 +3,9 @@
 Parity-plus: the reference carries only coarse wall timers
 (``src/md_timer.c:82 ut()``, the asm/solve split in
 ``src/mm_sol_nonlinear.c``) — those exist here as NewtonResult's
-assembly_time/solve_time. This module adds the TPU-native deep view: an
-XLA/TPU trace viewable in TensorBoard (or Perfetto) with named phase
-annotations, so per-kernel HBM/MXU behavior of a Newton step can be
+assembly_time/solve_time. This module adds the device deep view: an
+XLA trace viewable in TensorBoard (or Perfetto) with named phase
+annotations, so per-kernel device behavior of a Newton step can be
 inspected.
 
     from goma_tpu.utils.profiling import trace, annotate
@@ -44,7 +44,7 @@ def annotate(name: str):
 
 def device_memory_profile(path: str) -> None:
     """Dump the current device memory profile (pprof format) to ``path`` —
-    the TPU analog of watching the reference's heap with massif."""
+    the device analog of watching the reference's heap with massif."""
     import jax
 
     with open(path, "wb") as f:

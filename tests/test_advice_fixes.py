@@ -1,4 +1,4 @@
-"""Regression tests for round-1 advisor findings (ADVICE.md).
+"""Regression tests for early review findings.
 
 1. NormalModeMomentum base-shear term must be (u_hat . grad) u0 (was
    (grad u0)^T u_hat): Couette base flow u0 = (y, 0) with a constant

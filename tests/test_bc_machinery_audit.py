@@ -1,6 +1,6 @@
 """Sampled end-to-end audit of "M machinery" BC-parity rows (round 5).
 
-VERDICT r4 weak #7: an "M" row in docs/BC_PARITY.md is a *claim* that the
+An "M" row in docs/BC_PARITY.md is a *claim* that the
 card is expressible with existing machinery — this suite converts a seeded
 random sample of those claims into *evidence* by exercising each card
 deck-level, the way its construct column says, with exact (or structural)

@@ -122,8 +122,8 @@ def test_fast_prep_point_constraint_rows():
 
 def test_prep32_switched_precision_newton():
     """Switched-precision prep (opts.prep32_tol): early iterations prep
-    entirely at jacobian_dtype (one fused residual+Jacobian pass — on TPU
-    this skips the software-emulated f64 residual), the endgame re-preps at
+    entirely at jacobian_dtype (one fused residual+Jacobian pass that
+    skips the separate f64 residual), the endgame re-preps at
     full precision. Must reproduce the full-precision path's iteration
     count and solution; convergence is only declared from f64 norms."""
     import dataclasses

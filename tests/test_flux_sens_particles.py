@@ -1,5 +1,5 @@
-"""Flux sensitivities + inertial particle dynamics (VERDICT round-2 parity
-sweep items; reference src/mm_flux.c:5792 evaluate_flux_sens and
+"""Flux sensitivities + inertial particle dynamics (parity sweep items;
+reference src/mm_flux.c:5792 evaluate_flux_sens and
 src/ac_particles.c:4205 INERTIAL_TRACER_IMPLICIT)."""
 
 import numpy as np

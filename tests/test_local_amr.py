@@ -268,7 +268,7 @@ def test_3d_two_phase_transient_refines_band_and_continues():
     """3D static bubble on TET10: 2 transient steps, refine ONLY the LS
     band, transfer (x, xdot), continue 2 more steps; the 2 sigma / R
     Laplace jump survives the adapt (the 3D counterpart of the 2D test
-    above; VERDICT r4 item 4)."""
+    above)."""
     sigma, R = 1.0, 0.5
     mesh = box_mesh(4, 4, 4, elem="TET10", xlim=(-1, 1), ylim=(-1, 1),
                     zlim=(-1, 1))

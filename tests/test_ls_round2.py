@@ -36,8 +36,7 @@ def test_renormalize_mass_preserves_volume():
 
 def test_renormalize_mass_long_advection_drift():
     """Rigid rotation of a circle with periodic mass renorm: enclosed
-    volume drift stays < 0.1% over a long transient (VERDICT round-2 'done'
-    criterion), vs the visible drift of plain renorm."""
+    volume drift stays < 0.1% over a long transient, vs the visible drift of plain renorm."""
     mesh = rectangle_mesh(20, 20, elem="QUAD9", xlim=(-1, 1), ylim=(-1, 1))
     eps = 0.15
     th0 = np.arctan2(mesh.coords[:, 1], mesh.coords[:, 0])

@@ -1,5 +1,5 @@
 """On-device nested-dissection multifrontal LU (solvers/ndlu.py) — the
-TPU-native analog of the reference's sparse direct dispatch
+on-device analog of the reference's sparse direct dispatch
 (src/mm_sol_nonlinear.c:1290-1515 UMFPACK/Amesos)."""
 
 import numpy as np
@@ -55,7 +55,7 @@ def test_ndlu_f64_matches_scipy_on_saddle():
 
 def test_ndlu_f32_refinement_recovers_f64():
     """Static-pivoted f32 factorization + 2 refinement sweeps with the f64
-    matvec reaches ~f64 backward error (the TPU mixed-precision play)."""
+    matvec reaches ~f64 backward error (the mixed-precision path)."""
     prob, pat, vals, b = _saddle_system(8)
     nd = NDLU(pat, leaf_max=64, dtype=jnp.float32)
     fac = nd.factor(vals)
@@ -75,12 +75,12 @@ def test_newton_tpu_direct_matches_host_direct():
     r_host = NewtonSolver(prob, NewtonOptions(
         max_iter=10, tol_residual=1e-10, linear_solver="direct")).solve(
         x0, prob.base_params())
-    r_tpu = NewtonSolver(prob, NewtonOptions(
+    r_dev = NewtonSolver(prob, NewtonOptions(
         max_iter=10, tol_residual=1e-10, linear_solver="tpu_direct",
         ndlu_refine=3)).solve(x0, prob.base_params())
-    assert r_host.converged and r_tpu.converged
-    assert r_tpu.iters == r_host.iters, (r_tpu.summary(), r_host.summary())
-    np.testing.assert_allclose(r_tpu.x, r_host.x, atol=5e-8)
+    assert r_host.converged and r_dev.converged
+    assert r_dev.iters == r_host.iters, (r_dev.summary(), r_host.summary())
+    np.testing.assert_allclose(r_dev.x, r_host.x, atol=5e-8)
 
 
 def test_ndlu_unbalanced_leaf_sizes():
@@ -114,35 +114,6 @@ def test_ndlu_blocked_lu_matches_scipy():
                       shape=(pat.n, pat.n))
     xs = sp.linalg.spsolve(A, np.asarray(b))
     assert np.linalg.norm(x - xs) / np.linalg.norm(xs) < 1e-11
-
-
-def test_ndlu_pallas_front_lu_matches_scipy():
-    """One-kernel unpivoted pallas front LU (interpret mode on CPU; the TPU
-    factor path) + defer ordering reproduces the pivoted factorization on
-    the saddle cavity."""
-    prob, pat, vals, b = _saddle_system(6)
-    nd = NDLU(pat, leaf_max=48, dtype=jnp.float64, front_lu="pallas",
-              defer_dofs=zero_diag_defer_mask(pat, vals))
-    fac = nd.factor(vals)
-    x = np.asarray(nd.solve(fac, b))
-    A = sp.csr_matrix((np.asarray(vals), pat.indices, pat.indptr),
-                      shape=(pat.n, pat.n))
-    xs = sp.linalg.spsolve(A, np.asarray(b))
-    assert np.linalg.norm(x - xs) / np.linalg.norm(xs) < 1e-9
-
-
-def test_ndlu_pallas_f32_refined():
-    """Pallas-front f32 factorization + refinement reaches f64 backward
-    error (the TPU bench configuration)."""
-    prob, pat, vals, b = _saddle_system(6)
-    nd = NDLU(pat, leaf_max=48, dtype=jnp.float32, front_lu="pallas",
-              defer_dofs=zero_diag_defer_mask(pat, vals))
-    fac = nd.factor(vals)
-    ell = EllOperator(pat)
-    mv = lambda v: ell.matvec(vals, v)
-    x = nd.solve_refined(fac, b, mv, refine=3)
-    r = np.asarray(b - mv(x))
-    assert np.linalg.norm(r) / np.linalg.norm(np.asarray(b)) < 1e-12
 
 
 def test_ndlu_blocked_f32_refined():
@@ -186,37 +157,11 @@ def test_ndlu_lagged_factor_transient_reuse():
     np.testing.assert_allclose(r3.x, r1.x, atol=5e-8)
 
 
-def test_ndlu_chunked_triangular_solve():
-    """The chunked batched triangular_solve (VMEM-bounded) matches the
-    unchunked lax call."""
-    from goma_tpu.solvers import ndlu as nd_mod
-
-    rng = np.random.RandomState(3)
-    nn, m = 7, 33
-    L = np.tril(rng.randn(nn, m, m)) + 5.0 * np.eye(m)
-    B = rng.randn(nn, m, 4)
-    ref = nd_mod._lax_triangular_solve(jnp.asarray(L), jnp.asarray(B),
-                                       left_side=True, lower=True)
-    # force chunking by shrinking the budget via a tiny wrapper call
-    outs = [nd_mod._lax_triangular_solve(jnp.asarray(L[i:i + 2]),
-                                         jnp.asarray(B[i:i + 2]),
-                                         left_side=True, lower=True)
-            for i in range(0, nn, 2)]
-    chunked = jnp.concatenate(outs, axis=0)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(chunked),
-                               rtol=1e-12, atol=1e-12)
-    # and the public wrapper dispatches correctly (nn below the budget)
-    out = nd_mod.triangular_solve(jnp.asarray(L), jnp.asarray(B),
-                                  left_side=True, lower=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-
-
 def test_gmres_with_ndlu_preconditioner():
     """precond="ndlu": GMRES accelerated by the (selective-inversion)
     multifrontal factor — lin its stay small and the solution matches the
     host direct path. Tables flow through the ntab jit args (the
-    regression here was oversized traced programs on remote TPUs)."""
+    regression here was oversized traced programs)."""
     prob = _cavity(12)
     x0 = jnp.zeros(prob.dofmap.n_dof)
     s = NewtonSolver(prob, NewtonOptions(
@@ -285,7 +230,7 @@ def test_solve_refined_return_rel_and_sweep():
 def _buoyant(n=6):
     """Multi-field saddle system (momentum+continuity+energy+species — the
     buoyant MES bench shape, 5 dofs on Q2 corner nodes) whose front density
-    exposed the round-2 leaf_max fragility (docs/PERFORMANCE.md r2 notes)."""
+    exposed a leaf_max fragility before clustered bisection)."""
     from goma_tpu.physics import Energy, Species
     from goma_tpu.physics.materials import BoussinesqBodyForce
 
@@ -322,8 +267,7 @@ def test_ndlu_clusters_keep_node_dofs_in_one_front():
     dofs (velocity + pressure + scalars) land in the SAME tree node's own
     block, so a saddle (pressure) row always has its conjugate momentum
     rows available for the defer-ordered unpivoted elimination. This is
-    the robustness fix replacing per-deck leaf_max tuning (VERDICT r2:
-    bench.py buoyant leaf_max=256 hand-tuning)."""
+    the robustness fix replacing per-deck leaf_max tuning."""
     from goma_tpu.solvers.ndlu import node_clusters
 
     for mk in (_cavity, lambda n: _buoyant(n)[0]):
@@ -346,7 +290,7 @@ def test_ndlu_clusters_keep_node_dofs_in_one_front():
 
 
 def test_ndlu_cluster_leaf_sweep():
-    """VERDICT r2 item 6 'done' bar: the multi-field saddle system factors
+    """The multi-field saddle system factors
     and solves correctly at every leaf size in {64,96,192,256} with the
     clustered bisection + defer ordering + f32 refinement — no per-deck
     leaf_max tuning."""

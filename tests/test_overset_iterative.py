@@ -1,7 +1,7 @@
 """Constraint-aware (multiplier-in-block Schwarz) preconditioning: overset
 Lagrange-multiplier saddles converge ITERATIVELY — the round-1 gap where
 zero-diagonal lambda rows broke every preconditioner and forced
-linear_solver='direct' (VERDICT weak item 7 / next-round item 8)."""
+linear_solver='direct'."""
 
 import numpy as np
 import jax.numpy as jnp

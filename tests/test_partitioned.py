@@ -31,7 +31,7 @@ def _cavity(n=12, Re=50.0):
 
 def test_partitioned_sizes_scale():
     """Per-device array sizes must scale ~1/N (plus the halo surface term) —
-    the VERDICT round-2 'done' criterion for sharding v2."""
+    the 'done' criterion for partitioned sharding."""
     from goma_tpu.parallel.partitioned import PartitionedProblem
 
     prob = _cavity(16)
@@ -542,7 +542,7 @@ def test_deck_distributed_routing():
 
 
 def test_partitioned_ndlu_subdomain_solver():
-    """Distributed NDLU (VERDICT r3 item 5): every device factors its
+    """Distributed NDLU: every device factors its
     owned-subdomain matrix with the stacked multifrontal LU and applies it
     as the additive-Schwarz subdomain solve — the SuperLU_DIST/MUMPS
     analog (src/sl_amesos_interface.cpp:68). Same converged solution as
@@ -634,7 +634,7 @@ def test_stacked_ndlu_exact_local_solves():
 def test_partitioned_row_inject_parity():
     """Cross-equation row injection (add_row_inject) under the partitioned
     path: both rows of an inject pair live at the same node, so the row
-    move is local to the node's owner (VERDICT r4 item 5). Per-dof
+    move is local to the node's owner. Per-dof
     residual and per-entry CSR parity against the single-device assembly
     on a coupled two-field deck with injection along one side."""
     from goma_tpu.fem.sparsity import row_sum_scale
@@ -756,7 +756,7 @@ def _ovs_couette(ny=8, y_c=0.3, U_s=0.4, U_top=1.0, mu=0.7, nseg=5):
 
 def test_partitioned_overset_assembly_parity():
     """Overset (immersed-curve multiplier) decks under the partitioned
-    path (VERDICT r4 item 5): coupling rows replicate onto every owner of
+    path: coupling rows replicate onto every owner of
     a gathered dof; per-dof residual and per-entry scaled CSR parity vs
     the single-device assembly."""
     from goma_tpu.parallel.partitioned import PartitionedProblem

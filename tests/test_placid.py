@@ -43,7 +43,7 @@ def test_langmuir_isotherm():
 
 def test_langmuir_vmap_batch():
     """vmap over gas compositions reproduces the full isotherm curve —
-    the TPU-batched analog of the reference's per-point LAPACK loop."""
+    the batched analog of the reference's per-point LAPACK loop."""
     import jax
 
     kf, kr = 2.0, 0.5

@@ -1,4 +1,4 @@
-"""jax.profiler integration (TPU-native deep tracing; reference has only
+"""jax.profiler integration (device deep tracing; reference has only
 coarse ut() wall timers)."""
 
 import glob

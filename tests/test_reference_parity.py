@@ -1,4 +1,4 @@
-"""Golden Newton-trace parity fixtures (VERDICT r2 item 10).
+"""Golden Newton-trace parity fixtures.
 
 The reference's north-star parity clause (BASELINE.json) is "identical
 Newton iteration counts and residual norms to 1e-10 vs reference on a
